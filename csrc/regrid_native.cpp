@@ -9,7 +9,7 @@
 //   pairs on a plane + shoelace area of the intersection — the inner loop of
 //   conservative weight generation (weights/conservative.py).
 //
-// Built on demand by mpassit_tpu/native.py:
+// Built on demand by mpassit_jax/native.py:
 //   g++ -O3 -march=native -fopenmp -shared -fPIC regrid_native.cpp
 //
 // ABI: plain C, called through ctypes.

@@ -1,7 +1,7 @@
 """Independent scalar weight oracles (VERDICT round-1 item 5).
 
 Dead-simple per-target Python loops, deliberately sharing NO code with
-``mpassit_tpu/weights/``:
+``mpassit_jax/weights/``:
 
 - bilinear-on-dual: ray/plane intersection + 2-D sub-triangle areas
   (production uses normalized spherical triple products);

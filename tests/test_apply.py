@@ -2,12 +2,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpassit_tpu.ops.apply import Regridder, apply_ell
-from mpassit_tpu.ops.rotate import rotate_winds
-from mpassit_tpu.weights.bilinear import bilinear_cell_weights
-from mpassit_tpu.weights.cache import WeightCache, grid_fingerprint
-from mpassit_tpu.weights.ell import ELLWeights
-from mpassit_tpu.weights.nearest import nearest_weights
+from mpassit_jax.ops.apply import Regridder, apply_ell
+from mpassit_jax.ops.rotate import rotate_winds
+from mpassit_jax.weights.bilinear import bilinear_cell_weights
+from mpassit_jax.weights.cache import WeightCache, grid_fingerprint
+from mpassit_jax.weights.ell import ELLWeights
+from mpassit_jax.weights.nearest import nearest_weights
 
 from test_weights import coarse_lambert_grid
 

@@ -19,7 +19,7 @@ def _full_result():
         "metric": "x" * 200, "value": 1.23e11, "unit": "point-values/s",
         "vs_baseline": 99.0, "measurement_contract": "r3-fused",
         "t_apply_pass_s": 0.0185, "value_write_wall": 1.1e11,
-        "value_materialized_split6": 9.4e10, "device": "TPU v5 lite0",
+        "value_materialized_split6": 9.4e10, "device": "NVIDIA H100 80GB HBM3",
         "full_mesh": {
             "ncells": 2600000, "backend": "fused", "n_cols": 512,
             "t_apply_pass_s": 0.0106, "value_materialized": 9.27e10,

@@ -2,8 +2,8 @@ import math
 
 import pytest
 
-from mpassit_tpu.config import Config, ConfigError, parse_namelist
-from mpassit_tpu.constants import EARTH_RADIUS_M, NAN, PROJ_LATLON, PROJ_LC
+from mpassit_jax.config import Config, ConfigError, parse_namelist
+from mpassit_jax.constants import EARTH_RADIUS_M, NAN, PROJ_LATLON, PROJ_LC
 
 CONUS_NML = """
 &config

@@ -2,23 +2,23 @@
 
 The reference fails fast through error_handler/netcdf_err
 (utils.F90:16-58) with specific operator-facing messages; these tests pin
-our messages to the same wording instead of raw h5py/KeyError traces.
+our messages to the same wording instead of raw reader/KeyError traces.
 """
 
 import numpy as np
 import pytest
 
-from mpassit_tpu.config import Config, ConfigError
-from mpassit_tpu.errors import FatalError, NetCDFError
-from mpassit_tpu.fields.registry import read_varlist
-from mpassit_tpu.grids.target import target_grid_from_file
-from mpassit_tpu.mesh.mpas import mesh_from_file
-from mpassit_tpu.mesh.synthetic import (
+from mpassit_jax.config import Config, ConfigError
+from mpassit_jax.errors import FatalError, NetCDFError
+from mpassit_jax.fields.registry import read_varlist
+from mpassit_jax.grids.target import target_grid_from_file
+from mpassit_jax.mesh.mpas import mesh_from_file
+from mpassit_jax.mesh.synthetic import (
     synthetic_voronoi_mesh,
     write_mpas_data_file,
     write_mpas_grid_file,
 )
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.run.pipeline import run_pipeline
 
 from test_pipeline import make_case
 
@@ -44,7 +44,7 @@ def test_missing_grid_file(tmp_path):
 
 def test_grid_file_missing_dim(tmp_path):
     # model_grid.F90:293: 'reading nCells id'
-    from mpassit_tpu.io.nc4 import NetCDF4File
+    from mpassit_jax.io.nc4 import NetCDF4File
 
     p = str(tmp_path / "empty.nc")
     with NetCDF4File(p, "w"):
@@ -61,7 +61,7 @@ def test_missing_target_file(tmp_path):
 
 def test_target_file_missing_vars(tmp_path):
     # model_grid.F90:1364+: 'reading <var> id'
-    from mpassit_tpu.io.nc4 import NetCDF4File
+    from mpassit_jax.io.nc4 import NetCDF4File
 
     p = str(tmp_path / "wrf.nc")
     with NetCDF4File(p, "w") as f:
@@ -123,15 +123,13 @@ def test_nan_guard(tmp_path, monkeypatch):
 
     mesh, cfg, _, _ = make_case(tmp_path, ncells=400, nx=9, ny=7,
                                 interp_hist=False, wrf_mod_vars=False)
-    # poison one diag input field
-    from mpassit_tpu.io.nc4 import NetCDF4File
+    # poison one diag input field (edited in place through the repo's
+    # classic-format writer)
+    from mpassit_jax.io.nc4 import ClassicFile
 
-    import h5py
-
-    with h5py.File(cfg.diag_file_input_grid, "r+") as f:
-        a = f["t2m"][...]
-        a[...] = np.nan      # poison every cell so any mapped target hits it
-        f["t2m"][...] = a
+    with ClassicFile(cfg.diag_file_input_grid, "r+") as f:
+        # poison every cell so any mapped target hits it
+        f.var_view("t2m")[...] = np.nan
     monkeypatch.setenv("MPASSIT_DEBUG_NANS", "1")
     # either trap is acceptable: jax_debug_nans fires inside the jitted
     # apply (FloatingPointError), the host guard fires after (FatalError)
@@ -154,7 +152,7 @@ def test_config_error_is_fatal():
 
 def test_cli_banner_and_exit_code(tmp_path, capsys):
     """main() prints the error_handler banner and exits like mpi_abort."""
-    from mpassit_tpu.run.pipeline import main
+    from mpassit_jax.run.pipeline import main
 
     nml = tmp_path / "namelist.input"
     nml.write_text("&config\n target_grid_type = 'bogus'\n nx=4\n ny=4\n/\n")

@@ -7,14 +7,14 @@ cylindrical, Cassini/rotated-pole, Gaussian
 import numpy as np
 import pytest
 
-from mpassit_tpu.constants import (
+from mpassit_jax.constants import (
     PROJ_ALBERS_NAD83,
     PROJ_CASSINI,
     PROJ_CYL,
     PROJ_GAUSS,
     PROJ_PS_WGS84,
 )
-from mpassit_tpu.grids.projection import (
+from mpassit_jax.grids.projection import (
     gaussian_latitudes,
     ij_to_latlon,
     latlon_to_ij,

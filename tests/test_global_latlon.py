@@ -15,9 +15,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from mpassit_tpu.grids.target import build_target_grid
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.grids.target import build_target_grid
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.run.pipeline import run_pipeline
 
 from test_pipeline import make_case, smooth
 
@@ -83,7 +83,7 @@ def test_global_conservative_row_sums(global_run):
     whose quads span the +/-180 wrap."""
     _, _, art, _, _ = global_run
     ell = None
-    from mpassit_tpu.weights.conservative import conservative_weights
+    from mpassit_jax.weights.conservative import conservative_weights
 
     mesh, cfg = art.mesh, art.cfg
     ell = conservative_weights(mesh, art.grid)

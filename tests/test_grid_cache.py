@@ -5,8 +5,8 @@ builder's ref_lat mutation must not re-key)."""
 
 import numpy as np
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.grids.target import (
+from mpassit_jax.config import Config
+from mpassit_jax.grids.target import (
     _GRID_FIELDS,
     _grid_cache_path,
     build_target_grid,

@@ -1,9 +1,7 @@
-"""SlabMatmulRegridder (ops/matmul_apply.py) contracts on real weights.
-
-Restored from the removed test_pallas_apply.py (ADVICE r2): parity vs the
-independent gather Regridder, the documented precision error bounds, the
-load-bearing optimization_barrier in _split_hilo, and the LANE(128) column
-padding / CB chunking behavior."""
+"""SlabMatmulRegridder (ops/matmul_apply.py) contracts on real weights:
+parity vs the independent gather Regridder, the documented precision error
+bounds, the load-bearing optimization_barrier in _split_hilo, and the
+LANE(128) column padding / CB chunking behavior."""
 
 import dataclasses
 
@@ -12,16 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpassit_tpu.mesh.reorder import reorder_cells_morton
-from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
-from mpassit_tpu.ops.apply import Regridder
-from mpassit_tpu.ops.matmul_apply import (
+from mpassit_jax.mesh.reorder import reorder_cells_morton
+from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
+from mpassit_jax.ops.apply import Regridder
+from mpassit_jax.ops.matmul_apply import (
     CB,
     LANE,
     SlabMatmulRegridder,
     _split_hilo,
 )
-from mpassit_tpu.weights.bilinear import bilinear_cell_weights
+from mpassit_jax.weights.bilinear import bilinear_cell_weights
 
 from test_weights import coarse_lambert_grid
 
@@ -48,7 +46,7 @@ def test_slab_matmul_matches_xla(problem):
     # 1-D source
     out1 = mm.apply_np(src[:, 0])
     np.testing.assert_allclose(out1, ref[:, :, 0], rtol=2e-6, atol=2e-5)
-    # opt-in speed mode: one MXU pass, compensated bf16x3 product
+    # split mode: one bf16 contraction, compensated bf16x3 product
     out_b = SlabMatmulRegridder(ell, precision="split_bf16").apply_np(src)
     np.testing.assert_allclose(out_b, ref, rtol=1e-4, atol=1e-4)
 
@@ -66,86 +64,74 @@ def test_slab_matmul_column_chunking(problem):
 
 def test_device_call_matches_apply_np(problem):
     """__call__ (device path) honors the (nyp, nxp, C) contract and matches
-    apply_np's cropped result — both backends (ADVICE r2: the fused path
-    used to return sharding-padded rows)."""
+    apply_np's cropped result."""
     mesh, grid, ell = problem
     rng = np.random.default_rng(6)
     src = rng.standard_normal((mesh.ncells, 3)).astype(np.float32)
     ny, nx = ell.dst_shape
-    for backend in ("xla", "pallas"):
-        mm = SlabMatmulRegridder(ell, backend=backend)
-        out_dev = np.asarray(mm(jnp.asarray(src)))
-        assert out_dev.shape == (mm.nty * 32, mm.ntx * 32, 3)
-        np.testing.assert_allclose(
-            out_dev[:ny, :nx], mm.apply_np(src), rtol=1e-6, atol=1e-7)
+    mm = SlabMatmulRegridder(ell)
+    out_dev = np.asarray(mm(jnp.asarray(src)))
+    assert out_dev.shape == (mm.nty * 32, mm.ntx * 32, 3)
+    np.testing.assert_allclose(
+        out_dev[:ny, :nx], mm.apply_np(src), rtol=1e-6, atol=1e-7)
 
 
 def test_sharded_fused_output_shape(problem):
-    """With a device mesh, the fused path must crop the device-padding tile
-    rows back off (ADVICE r2 finding #1)."""
-    from mpassit_tpu.parallel.sharding import make_grid_mesh
+    """With a device mesh, the device-padding tile rows are cropped back
+    off: the sharded __call__ has the unsharded (nyp, nxp, C) shape and
+    values."""
+    from mpassit_jax.parallel.sharding import make_grid_mesh
 
     mesh, grid, ell = problem
     dmesh = make_grid_mesh(jax.devices()[:8])
     rng = np.random.default_rng(8)
     src = rng.standard_normal((mesh.ncells, 2)).astype(np.float32)
-    mm = SlabMatmulRegridder(ell, mesh=dmesh, backend="pallas")
-    mm_x = SlabMatmulRegridder(ell, mesh=dmesh, backend="xla")
+    mm = SlabMatmulRegridder(ell, mesh=dmesh)
+    assert mm.nty_p % 8 == 0 and mm.nty_p > mm.nty
     out = np.asarray(mm(jnp.asarray(src)))
-    out_x = np.asarray(mm_x(jnp.asarray(src)))
-    assert out.shape == out_x.shape == (mm.nty * 32, mm.ntx * 32, 2)
-    np.testing.assert_allclose(out, out_x, rtol=1e-6, atol=1e-7)
+    out_1 = np.asarray(SlabMatmulRegridder(ell)(jnp.asarray(src)))
+    assert out.shape == out_1.shape == (mm.nty * 32, mm.ntx * 32, 2)
+    np.testing.assert_array_equal(out, out_1)
 
 
 def test_fused_sharded_jit_is_reused(problem):
-    """The jitted shard_map wrapper must be built once and cached (ADVICE
-    r2 finding #2: rebuilding per call re-traced on the hot bundle path)."""
-    from mpassit_tpu.parallel.sharding import make_grid_mesh
+    """Repeated sharded applies of one width reuse their compiled tile
+    matmul: the second call traces nothing new on the hot bundle path."""
+    from mpassit_jax.ops.matmul_apply import _tile_matmul
+    from mpassit_jax.parallel.sharding import make_grid_mesh
 
     mesh, grid, ell = problem
     dmesh = make_grid_mesh(jax.devices()[:8])
-    mm = SlabMatmulRegridder(ell, mesh=dmesh, backend="pallas")
+    mm = SlabMatmulRegridder(ell, mesh=dmesh)
     src = jnp.asarray(np.random.default_rng(9).standard_normal(
         (mesh.ncells, 2)).astype(np.float32))
-    assert not mm._fused_sharded
-    mm(src)
-    assert len(mm._fused_sharded) == 1
-    (fn,) = mm._fused_sharded.values()
-    mm(src)
-    assert list(mm._fused_sharded.values()) == [fn]
+    first = np.asarray(mm(src))
+    n_compiled = _tile_matmul._cache_size()
+    np.testing.assert_array_equal(np.asarray(mm(src)), first)
+    assert _tile_matmul._cache_size() == n_compiled
 
 
-def test_fused_sharded_reroutes_when_ell_stops_fitting(problem, monkeypatch):
-    """ADVICE r4 #1: use_ell depends on the per-call Cp. A narrow first
-    bundle must not pin a later, wider bundle (ell_fits_vmem False) onto
-    the ELL-direct kernel — the cache is keyed per use_ell mode and the
-    wide call routes to the prestacked-A wrapper with identical results."""
-    from mpassit_tpu.parallel.sharding import make_grid_mesh
+def test_fused_sharded_reroutes_when_ell_stops_fitting(problem):
+    """A narrow first bundle must not pin state that a later, wider bundle
+    (another padded width, another CB chunk count) reuses wrongly: both
+    calls on one sharded engine equal fresh engines' results."""
+    from mpassit_jax.parallel.sharding import make_grid_mesh
 
     mesh, grid, ell = problem
     dmesh = make_grid_mesh(jax.devices()[:8])
-    mm = SlabMatmulRegridder(ell, mesh=dmesh, backend="pallas")
-    # force the fits-VMEM decision to flip on column width alone
-    import mpassit_tpu.ops.pallas_matmul as pm
-
-    real_fits = pm.ell_fits_vmem
-    monkeypatch.setattr(pm, "ell_fits_vmem",
-                        lambda W, Ks, Cp, precision="split_bf16":
-                        Cp <= 128 and real_fits(W, Ks, Cp, precision))
+    mm = SlabMatmulRegridder(ell, mesh=dmesh)
     rng = np.random.default_rng(11)
     narrow = jnp.asarray(rng.standard_normal(
         (mesh.ncells, 2)).astype(np.float32))
-    wide_np = rng.standard_normal((mesh.ncells, 130)).astype(np.float32)
-    wide = jnp.asarray(wide_np)
-    out_n = np.asarray(mm(narrow))          # builds the ELL wrapper
-    assert list(mm._fused_sharded) == [True]
-    out_w = np.asarray(mm(wide))            # must build the non-ELL one
-    assert sorted(mm._fused_sharded) == [False, True]
-    mm_ref = SlabMatmulRegridder(ell, mesh=dmesh, backend="pallas")
-    np.testing.assert_allclose(out_w, np.asarray(mm_ref(wide)),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(out_n, np.asarray(mm_ref(narrow)),
-                               rtol=1e-6, atol=1e-7)
+    wide = jnp.asarray(rng.standard_normal(
+        (mesh.ncells, CB + 130)).astype(np.float32))
+    out_n = np.asarray(mm(narrow))
+    out_w = np.asarray(mm(wide))
+    assert out_w.shape[2] == CB + 130
+    np.testing.assert_array_equal(
+        out_w, np.asarray(SlabMatmulRegridder(ell, mesh=dmesh)(wide)))
+    np.testing.assert_array_equal(
+        out_n, np.asarray(SlabMatmulRegridder(ell, mesh=dmesh)(narrow)))
 
 
 def test_precision_error_bounds(problem):
@@ -184,7 +170,7 @@ def test_rejects_too_many_uniques(problem):
     mesh, grid, ell = problem
     rng = np.random.default_rng(1)
     # a fake huge source space so a 32x32 tile's K*TILE random draws
-    # exceed W_CAP=2048 distinct rows
+    # exceed W_CAP distinct rows
     scrambled = dataclasses.replace(ell, n_src=500_000, idx=rng.integers(
         0, 500_000, size=ell.idx.shape).astype(np.int32))
     with pytest.raises(ValueError, match="unique source rows"):
@@ -192,8 +178,8 @@ def test_rejects_too_many_uniques(problem):
 
 
 def test_split_hilo_residual_survives_jit():
-    """Guards the optimization_barrier in _split_hilo: XLA:TPU's algebraic
-    simplifier folds f32->bf16->f32 round-trips to identity, zeroing the
+    """Guards the optimization_barrier in _split_hilo: XLA on the GPU
+    folds f32->bf16->f32 round-trips to identity without it, zeroing the
     compensation term and silently degrading split_bf16 to plain bf16."""
     x = jnp.asarray(np.float32(1.0) + np.float32(1e-3) *
                     np.arange(1, 257, dtype=np.float32))
@@ -211,8 +197,8 @@ def test_split_hilo_residual_survives_jit():
 
 @pytest.fixture(scope="module")
 def packed_problem(problem):
-    from mpassit_tpu.weights.conservative import conservative_weights
-    from mpassit_tpu.weights.nearest import nearest_weights
+    from mpassit_jax.weights.conservative import conservative_weights
+    from mpassit_jax.weights.nearest import nearest_weights
 
     mesh, grid, ell_b = problem
     ell_n = nearest_weights(mesh, grid.lat, grid.lon)
@@ -224,34 +210,30 @@ def packed_problem(problem):
     return (ell_b, ell_n, ell_c), cols, src
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("precision", ["highest", "split_bf16",
                                        "split6_bf16"])
-def test_packed_matches_separate(packed_problem, backend, precision):
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
+def test_packed_matches_separate(packed_problem, precision):
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), cols, src = packed_problem
     packed = PackedSlabRegridder(
-        list(zip((ell_b, ell_n, ell_c), cols)), precision=precision,
-        backend=backend)
+        list(zip((ell_b, ell_n, ell_c), cols)), precision=precision)
     got = packed.apply_np(src)
     off = 0
     for ell, c in zip((ell_b, ell_n, ell_c), cols):
-        want = SlabMatmulRegridder(ell, precision=precision,
-                                   backend=backend).apply_np(
+        want = SlabMatmulRegridder(ell, precision=precision).apply_np(
             src[:, off:off + c])
         np.testing.assert_allclose(got[:, :, off:off + c], want,
                                    rtol=1e-6, atol=1e-7,
-                                   err_msg=f"{ell.method} {backend}")
+                                   err_msg=ell.method)
         off += c
 
 
 def test_packed_device_call_and_validation(packed_problem):
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), cols, src = packed_problem
-    packed = PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)),
-                                 backend="pallas")
+    packed = PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)))
     out = np.asarray(packed(jnp.asarray(src)))
     assert out.shape == (packed.nty * 32, packed.ntx * 32, sum(cols))
     ny, nx = ell_b.dst_shape
@@ -262,15 +244,14 @@ def test_packed_device_call_and_validation(packed_problem):
 
 
 def test_packed_sharded_matches_single(packed_problem):
-    from mpassit_tpu.parallel.sharding import make_grid_mesh
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
+    from mpassit_jax.parallel.sharding import make_grid_mesh
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), cols, src = packed_problem
     dmesh = make_grid_mesh(jax.devices()[:8])
-    single = PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)),
-                                 backend="pallas")
+    single = PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)))
     sharded = PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)),
-                                  backend="pallas", mesh=dmesh)
+                                  mesh=dmesh)
     np.testing.assert_allclose(sharded.apply_np(src), single.apply_np(src),
                                rtol=1e-6, atol=1e-7)
 
@@ -288,7 +269,7 @@ def _rotation_fixture(ell_b, seed=3):
 def _rotate_posthoc(out, windows, cosa, sina):
     """The post-hoc reference: the canonical ops.rotate.rotate_winds applied
     to the un-rotated packed output on the host."""
-    from mpassit_tpu.ops.rotate import rotate_winds
+    from mpassit_jax.ops.rotate import rotate_winds
 
     out = np.array(out)
     for (cu, cv, n) in windows:
@@ -300,20 +281,18 @@ def _rotate_posthoc(out, windows, cosa, sina):
     return out
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_packed_in_apply_rotation_matches_posthoc(packed_problem, backend):
-    """rotate_spec pins the in-apply rotation (in-kernel on the fused path,
-    post-unblock on the XLA path) to the canonical post-hoc rotate_winds:
-    window columns rotated per quirk Q4, all other columns untouched."""
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
+def test_packed_in_apply_rotation_matches_posthoc(packed_problem):
+    """rotate_spec pins the in-apply rotation (post-unblock) to the
+    canonical post-hoc rotate_winds: window columns rotated per quirk Q4,
+    all other columns untouched."""
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), cols, src = packed_problem
     cosa, sina = _rotation_fixture(ell_b)
     windows = ((0, 2, 2),)   # u = cols [0,2), v = cols [2,4) of bilinear's 5
     spec = list(zip((ell_b, ell_n, ell_c), cols))
-    plain = PackedSlabRegridder(spec, backend=backend)
-    rot = PackedSlabRegridder(spec, backend=backend,
-                              rotate_spec=(windows, cosa, sina))
+    plain = PackedSlabRegridder(spec)
+    rot = PackedSlabRegridder(spec, rotate_spec=(windows, cosa, sina))
     base = plain.apply_np(src)
     got = rot.apply_np(src)
     want = _rotate_posthoc(base, windows, cosa, sina)
@@ -329,17 +308,16 @@ def test_packed_in_apply_rotation_matches_posthoc(packed_problem, backend):
 def test_packed_rotation_sharded_matches_single(packed_problem):
     """Row-sharded cosa/sina follow their output shard; identity padding
     (cosa=1, sina=0) keeps padded rows NaN-free on every device."""
-    from mpassit_tpu.parallel.sharding import make_grid_mesh
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
+    from mpassit_jax.parallel.sharding import make_grid_mesh
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), cols, src = packed_problem
     cosa, sina = _rotation_fixture(ell_b, seed=4)
     windows = ((0, 2, 2),)
     spec = list(zip((ell_b, ell_n, ell_c), cols))
     dmesh = make_grid_mesh(jax.devices()[:8])
-    single = PackedSlabRegridder(spec, backend="pallas",
-                                 rotate_spec=(windows, cosa, sina))
-    sharded = PackedSlabRegridder(spec, backend="pallas", mesh=dmesh,
+    single = PackedSlabRegridder(spec, rotate_spec=(windows, cosa, sina))
+    sharded = PackedSlabRegridder(spec, mesh=dmesh,
                                   rotate_spec=(windows, cosa, sina))
     got_s = sharded.apply_np(src)
     assert np.isfinite(got_s).all()
@@ -348,35 +326,44 @@ def test_packed_rotation_sharded_matches_single(packed_problem):
 
 
 def test_rotate_window_validation(packed_problem):
-    """Windows must fit one CB sub-chunk of one method's range, u before v."""
-    from mpassit_tpu.ops.matmul_apply import PackedSlabRegridder
-    from mpassit_tpu.ops.pallas_matmul import _validate_rotate
+    """Windows must hold u before v without overlap inside the packed
+    columns; any such window is rotated, also one that spans CB
+    sub-chunks."""
+    from mpassit_jax.ops.matmul_apply import PackedSlabRegridder
 
-    with pytest.raises(ValueError, match="rotate window"):
-        _validate_rotate(((0, CB + 44, 4),), ((0, 2 * CB),), 2 * CB)
-    # v overlapping u (cv < cu+n) is rejected
-    with pytest.raises(ValueError, match="rotate window"):
-        _validate_rotate(((0, 1, 2),), ((0, CB),), CB)
     (ell_b, ell_n, ell_c), cols, src = packed_problem
     cosa, sina = _rotation_fixture(ell_b)
-    with pytest.raises(ValueError, match="rotate window"):
-        PackedSlabRegridder(list(zip((ell_b, ell_n, ell_c), cols)),
-                            rotate_spec=(((0, 8, 4),), cosa, sina))
+    spec = list(zip((ell_b, ell_n, ell_c), cols))
+    for bad in ((0, 8, 4),      # v past the 10 packed columns
+                (0, 1, 2),      # v overlapping u (cv < cu+n)
+                (3, 0, 2)):     # v before u
+        with pytest.raises(ValueError, match="rotate window"):
+            PackedSlabRegridder(spec, rotate_spec=((bad,), cosa, sina))
+    wide_cols = [2 * CB + 8, 3, 2]
+    wide_src = np.random.default_rng(12).standard_normal(
+        (ell_b.n_src, sum(wide_cols))).astype(np.float32)
+    wide_spec = list(zip((ell_b, ell_n, ell_c), wide_cols))
+    windows = ((0, CB + 4, 4),)     # v in the second CB sub-chunk
+    got = PackedSlabRegridder(
+        wide_spec, rotate_spec=(windows, cosa, sina)).apply_np(wide_src)
+    base = PackedSlabRegridder(wide_spec).apply_np(wide_src)
+    np.testing.assert_allclose(
+        got, _rotate_posthoc(base, windows, cosa, sina), rtol=1e-6,
+        atol=1e-6)
 
 
 # --- device-memory-bounded grouped apply (production envelope) -------------
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("rotate", [False, True])
 def test_packed_grouped_apply_matches_full(packed_problem, monkeypatch,
-                                           backend, rotate):
-    """The production-envelope path: when the one-pass device working set
-    exceeds MPASSIT_DEVICE_BUDGET_GB, apply_np runs in column groups with
-    windowed source uploads (at the real 2.6M-cell x 1024-col x 1801x1061
-    load the one-pass form needs ~19.5 GB > 16 GB HBM). Grouped must equal
-    full-width bit-for-bit on both engine paths, rotation included."""
-    from mpassit_tpu.ops.matmul_apply import FETCH, PackedSlabRegridder
+                                           rotate):
+    """The device-memory-bounded path: when the one-pass device working
+    set exceeds the device budget (MPASSIT_DEVICE_BUDGET_GB where the
+    backend reports no memory limit, as the CPU), apply_np runs in column
+    groups with windowed source uploads. Grouped must equal full-width
+    bit-for-bit, rotation included."""
+    from mpassit_jax.ops.matmul_apply import FETCH, PackedSlabRegridder
 
     (ell_b, ell_n, ell_c), _, _ = packed_problem
     cols = [500, 80, 60]                     # Cp = 640 > FETCH
@@ -388,7 +375,7 @@ def test_packed_grouped_apply_matches_full(packed_problem, monkeypatch,
     if rotate:
         cosa, sina = _rotation_fixture(ell_b)
         kw["rotate_spec"] = (((0, 2, 2),), cosa, sina)
-    pk = PackedSlabRegridder(spec, backend=backend, **kw)
+    pk = PackedSlabRegridder(spec, **kw)
     assert pk.Cp > FETCH
     full = pk.apply_np(src)
     assert pk._grouped_width() == 0          # default budget: one pass

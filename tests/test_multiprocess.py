@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.run.pipeline import run_pipeline
 
 from test_pipeline import make_case
 
@@ -61,9 +61,8 @@ def _launch_two(nml, tmp_path, extra_env=None):
     procs = []
     for pid in range(2):
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-        env["MPASSIT_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["MPASSIT_COORDINATOR"] = f"localhost:{port}"
         env["MPASSIT_NUM_PROCESSES"] = "2"
         env["MPASSIT_PROCESS_ID"] = str(pid)
@@ -71,7 +70,7 @@ def _launch_two(nml, tmp_path, extra_env=None):
         if extra_env:
             env.update({k: v.format(pid=pid) for k, v in extra_env.items()})
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "mpassit_tpu", str(nml)],
+            [sys.executable, "-m", "mpassit_jax", str(nml)],
             env=env, cwd=str(tmp_path),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     outs = []

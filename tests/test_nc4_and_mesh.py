@@ -1,8 +1,8 @@
 import numpy as np
 
-from mpassit_tpu.io.nc4 import NetCDF4File, open_dataset
-from mpassit_tpu.mesh.mpas import mesh_from_file
-from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh, write_mpas_grid_file
+from mpassit_jax.io.nc4 import NetCDF4File, open_dataset
+from mpassit_jax.mesh.mpas import mesh_from_file
+from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh, write_mpas_grid_file
 
 
 def test_nc4_roundtrip(tmp_path):

@@ -1,4 +1,4 @@
-"""Pure-Python CDF-5 reader (io/nc4._CDF5Reader) against real libnetcdf.
+"""Pure-Python CDF-5 reading (io/nc4.ClassicFile) against real libnetcdf.
 
 Production MPAS runs write CDF-5 ("64-bit data" classic, magic CDF\\x05)
 once any variable exceeds CDF-2's 4 GiB limit; scipy.io.netcdf_file only
@@ -12,8 +12,8 @@ import ctypes
 import numpy as np
 import pytest
 
-from mpassit_tpu.io import netcdf_c
-from mpassit_tpu.io.nc4 import _CDF5Reader, open_dataset
+from mpassit_jax.io import netcdf_c
+from mpassit_jax.io.nc4 import ClassicFile, open_dataset
 
 pytestmark = pytest.mark.skipif(
     not netcdf_c.available(), reason="system libnetcdf not found")
@@ -104,7 +104,7 @@ def test_cdf5_magic_and_dispatch(tmp_path):
     with open(p, "rb") as f:
         assert f.read(4) == b"CDF\x05"
     ds = open_dataset(str(p))
-    assert isinstance(ds, _CDF5Reader)
+    assert isinstance(ds, ClassicFile) and ds.version == 5
     ds.close()
 
 
@@ -242,7 +242,7 @@ def test_pipeline_on_cdf5_inputs(tmp_path):
 
     from test_pipeline import make_case
 
-    from mpassit_tpu.run.pipeline import run_pipeline
+    from mpassit_jax.run.pipeline import run_pipeline
 
     mesh, cfg, _, _ = make_case(tmp_path)
     art_h5 = run_pipeline(cfg, dtype=jnp.float32)

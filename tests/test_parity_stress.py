@@ -8,11 +8,11 @@ restagger boundary SLACK clip. Each register row cites one of these tests.
 import numpy as np
 import pytest
 
-from mpassit_tpu.grids.target import TargetGrid
-from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
-from mpassit_tpu.weights.bilinear import bilinear_cell_weights
-from mpassit_tpu.weights.conservative import conservative_weights
-from mpassit_tpu.weights.restagger import SLACK, edge1_weights
+from mpassit_jax.grids.target import TargetGrid
+from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
+from mpassit_jax.weights.bilinear import bilinear_cell_weights
+from mpassit_jax.weights.conservative import conservative_weights
+from mpassit_jax.weights.restagger import SLACK, edge1_weights
 
 from oracle import (
     assert_weight_dicts_close,
@@ -120,7 +120,7 @@ def test_conservative_pentagon_cells_match_oracle():
     c = int(pentas[0])
 
     # small grid on the gnomonic plane tangent at the pentagon center
-    from mpassit_tpu.mesh.mpas import lonlat_to_xyz
+    from mpassit_jax.mesh.mpas import lonlat_to_xyz
 
     n = lonlat_to_xyz(mesh.lon_cell[c], mesh.lat_cell[c])
     ref = np.array([0.0, 0.0, 1.0]) if abs(n[2]) < 0.9 else \
@@ -161,8 +161,8 @@ def test_bilinear_native_equals_numpy_on_irregular():
     # run the fallback in a subprocess (native lib loads once per process)
     code = (
         "import os, numpy as np\n"
-        "from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh\n"
-        "from mpassit_tpu.weights.bilinear import bilinear_cell_weights\n"
+        "from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh\n"
+        "from mpassit_jax.weights.bilinear import bilinear_cell_weights\n"
         "mesh = synthetic_voronoi_mesh(ncells=300, nz=2, nsoil=1, seed=11)\n"
         "rng = np.random.default_rng(5)\n"
         "lat = rng.uniform(-60, 60, 200); lon = rng.uniform(-170, 170, 200)\n"

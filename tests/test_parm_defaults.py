@@ -12,21 +12,21 @@ import shutil
 import numpy as np
 import jax.numpy as jnp
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.fields.registry import (
+from mpassit_jax.config import Config
+from mpassit_jax.fields.registry import (
     CONS_VARS,
     NSTD_VARS,
     NZP1_VARS,
     VERT_VARS,
     read_varlist,
 )
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.mesh.synthetic import (
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.mesh.synthetic import (
     synthetic_voronoi_mesh,
     write_mpas_data_file,
     write_mpas_grid_file,
 )
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.run.pipeline import run_pipeline
 
 PARM = os.path.join(os.path.dirname(__file__), "..", "parm")
 

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.mesh.synthetic import (
+from mpassit_jax.config import Config
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.mesh.synthetic import (
     synthetic_voronoi_mesh,
     write_mpas_data_file,
     write_mpas_grid_file,
 )
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.run.pipeline import run_pipeline
 
 import jax.numpy as jnp
 
@@ -264,7 +264,7 @@ def test_u10_rotation_applied(full_run):
         u10 = f.read_var("U10")[0]
     # compare against manual: bilinear interp then rotate (art.data fields
     # are in the pipeline's cell_order numbering, matching the regridders)
-    from mpassit_tpu.ops.rotate import rotate_winds
+    from mpassit_jax.ops.rotate import rotate_winds
     rg = art.regridders["bilinear"]
     ui = rg.apply_np(art.data.fields["u10"])
     vi = rg.apply_np(art.data.fields["v10"])

@@ -41,11 +41,11 @@ def test_build_inputs_feed_the_full_pipeline(prod):
     with open(os.path.join(d, "parm", "histlist_3d")) as fh:
         assert "vorticity VORT" in fh.read()
 
-    from mpassit_tpu.run.pipeline import run_pipeline
+    from mpassit_jax.run.pipeline import run_pipeline
 
     cfg = bp._make_config(d, cache, os.path.join(d, "out.nc"), stream=True)
     art = run_pipeline(cfg, dtype=jnp.float32)
-    from mpassit_tpu.io.nc4 import open_dataset
+    from mpassit_jax.io.nc4 import open_dataset
 
     with open_dataset(cfg.output_file) as f:
         names = f.var_names()
@@ -62,7 +62,7 @@ def test_build_inputs_feed_the_full_pipeline(prod):
     with open(nml, "w") as fh:
         fh.write(bp._namelist_text(d, cache, os.path.join(d, "o2.nc"),
                                    stream=True))
-    from mpassit_tpu.config import Config
+    from mpassit_jax.config import Config
 
     cfg2 = Config.from_namelist(nml)
     assert cfg2.stream_output and cfg2.i_target == cfg.i_target

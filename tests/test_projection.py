@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.constants import PROJ_LATLON, PROJ_LC, PROJ_MERC, PROJ_PS
-from mpassit_tpu.grids import projection as P
+from mpassit_jax.config import Config
+from mpassit_jax.constants import PROJ_LATLON, PROJ_LC, PROJ_MERC, PROJ_PS
+from mpassit_jax.grids import projection as P
 
 
 def conus_proj():

@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpassit_tpu.mesh.reorder import (
+from mpassit_jax.mesh.reorder import (
     apply_perm,
     latitude_band_order,
     reorder_cells_by_latitude,
     reorder_cells_morton,
 )
-from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
-from mpassit_tpu.ops.apply import Regridder
-from mpassit_tpu.weights.bilinear import bilinear_cell_weights
+from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
+from mpassit_jax.ops.apply import Regridder
+from mpassit_jax.weights.bilinear import bilinear_cell_weights
 
 from test_weights import coarse_lambert_grid
 

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mpassit_tpu.ops.apply import Regridder
-from mpassit_tpu.weights.restagger import edge1_weights, edge2_weights
+from mpassit_jax.ops.apply import Regridder
+from mpassit_jax.weights.restagger import edge1_weights, edge2_weights
 
 from test_weights import coarse_lambert_grid
 
@@ -65,7 +65,7 @@ def test_deviation_from_midpoint_quantified(grid):
     by O(h^2) relative — measurable but small. This pins the bound the
     VERDICT asked for (weak #2): the two must AGREE to ~h^2 and genuinely
     DIFFER (the operator is not secretly 0.5/0.5)."""
-    from mpassit_tpu.run.pipeline import restagger_u_midpoint
+    from mpassit_jax.run.pipeline import restagger_u_midpoint
 
     rng = np.random.default_rng(0)
     f = (np.sin(np.deg2rad(grid.lat) * 3) * np.cos(np.deg2rad(grid.lon) * 2)
@@ -93,7 +93,7 @@ def test_interior_weights_near_half(grid):
 def test_pipeline_winds_use_operator(tmp_path):
     """End-to-end: U/V come out of the ELL restagger path (regridders dict
     carries edge1/edge2) and interior values still track the source wind."""
-    from mpassit_tpu.run.pipeline import run_pipeline
+    from mpassit_jax.run.pipeline import run_pipeline
     from test_pipeline import make_case
 
     mesh, cfg, hist_fields, _ = make_case(tmp_path, nx=17, ny=13)

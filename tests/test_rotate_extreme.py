@@ -15,7 +15,7 @@ import logging
 import numpy as np
 import pytest
 
-from mpassit_tpu.ops.rotate import (
+from mpassit_jax.ops.rotate import (
     COSA_WARN,
     check_rotation_angles,
     rotate_winds,
@@ -74,12 +74,12 @@ def test_exactly_90_degrees_is_nonfinite():
 
 def test_check_rotation_angles_warns(caplog):
     cosa = np.array([[1.0, 0.5], [0.05, 0.9]])
-    with caplog.at_level(logging.WARNING, logger="mpassit_tpu"):
+    with caplog.at_level(logging.WARNING, logger="mpassit_jax"):
         m = check_rotation_angles(cosa, name="unit test grid")
     assert m == pytest.approx(0.05)
     assert any("R11" in r.message for r in caplog.records)
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="mpassit_tpu"):
+    with caplog.at_level(logging.WARNING, logger="mpassit_jax"):
         m = check_rotation_angles(np.full((3, 3), 0.8))
     assert m == pytest.approx(0.8) and not caplog.records
     assert COSA_WARN == 0.1

@@ -12,8 +12,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.run.pipeline import run_pipeline
 
 from test_pipeline import make_case
 
@@ -82,7 +82,7 @@ def test_put_raises_instead_of_hanging_when_writer_dies():
     import threading
     import time
 
-    from mpassit_tpu.io.wrf_writer import StreamingWriter
+    from mpassit_jax.io.wrf_writer import StreamingWriter
 
     w = StreamingWriter.__new__(StreamingWriter)
     w._exc = None
@@ -119,7 +119,7 @@ def test_streamed_seams_multiple_strips_per_var(tmp_path, monkeypatch,
     P_TOP) spans several strips with odd level boundaries; the streamed
     file must stay bit-identical to the in-memory writer's
     (write_data.F90:1362-1419 transforms)."""
-    import mpassit_tpu.ops.matmul_apply as ma
+    import mpassit_jax.ops.matmul_apply as ma
 
     # CB is patched for BOTH runs: the column blocking changes XLA's
     # summation shapes (last-ulp apply differences), so bit-identity is

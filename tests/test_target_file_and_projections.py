@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.grids.target import build_target_grid, target_grid_from_file
-from mpassit_tpu.io.nc4 import open_dataset
-from mpassit_tpu.run.pipeline import run_pipeline
+from mpassit_jax.config import Config
+from mpassit_jax.grids.target import build_target_grid, target_grid_from_file
+from mpassit_jax.io.nc4 import open_dataset
+from mpassit_jax.run.pipeline import run_pipeline
 
 from test_pipeline import make_case
 

@@ -1,7 +1,7 @@
 """Production weight generators vs independent scalar oracles on an
 analytic hexagon-fan mesh (VERDICT round-1 item 5; SURVEY §4 unit-test row).
 
-The oracles (tests/oracle.py) share no code with mpassit_tpu/weights/ and
+The oracles (tests/oracle.py) share no code with mpassit_jax/weights/ and
 use different math for the same documented semantics; agreement at ~1e-12
 validates the weights themselves. Closed-form spot checks (weight 1 at a
 generator, 1/3 at a dual-triangle centroid, 1/2 splits across symmetry
@@ -13,14 +13,14 @@ import math
 import numpy as np
 import pytest
 
-from mpassit_tpu.grids.target import TargetGrid
-from mpassit_tpu.mesh.mpas import MPASMesh
-from mpassit_tpu.weights.bilinear import (
+from mpassit_jax.grids.target import TargetGrid
+from mpassit_jax.mesh.mpas import MPASMesh
+from mpassit_jax.weights.bilinear import (
     bilinear_cell_weights,
     bilinear_vertex_weights,
 )
-from mpassit_tpu.weights.conservative import conservative_weights
-from mpassit_tpu.weights.nearest import nearest_weights
+from mpassit_jax.weights.conservative import conservative_weights
+from mpassit_jax.weights.nearest import nearest_weights
 
 from oracle import (
     assert_weight_dicts_close,
@@ -138,7 +138,7 @@ def test_bilinear_closed_forms(hexmesh):
 
     # at the plane centroid of a dual triangle: exactly (1/3, 1/3, 1/3)
     tri = mesh.complete_triangles()[0]
-    from mpassit_tpu.mesh.mpas import lonlat_to_xyz
+    from mpassit_jax.mesh.mpas import lonlat_to_xyz
 
     P = lonlat_to_xyz(mesh.lon_cell[tri], mesh.lat_cell[tri]).mean(axis=0)
     P /= np.linalg.norm(P)
@@ -229,7 +229,7 @@ def test_conservative_closed_forms(hexmesh):
 def test_oracle_on_irregular_synthetic_mesh():
     """The oracle agreement isn't an artifact of lattice symmetry: repeat
     bilinear + nearest on an irregular synthetic Voronoi mesh."""
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
 
     mesh = synthetic_voronoi_mesh(ncells=200, nz=2, nsoil=1, seed=21)
     rng = np.random.default_rng(7)
@@ -257,7 +257,7 @@ def test_vertex_matches_oracle(hexmesh, targets):
 def test_vertex_oracle_fuzz(seed):
     """Vertex bilinear on irregular synthetic Voronoi meshes, random
     targets (including far-from-mesh points that must unmap identically)."""
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
 
     rng = np.random.default_rng(seed)
     mesh = synthetic_voronoi_mesh(ncells=int(rng.integers(150, 400)),
@@ -287,9 +287,9 @@ def test_restagger_matches_oracle(seed):
     closed-form quadratic inverse bilinear (production: candidate lists +
     Newton). Random grid sizes/spacings exercise rotated quads away from
     stand_lon."""
-    from mpassit_tpu.config import Config
-    from mpassit_tpu.grids.target import build_target_grid
-    from mpassit_tpu.weights.restagger import edge1_weights, edge2_weights
+    from mpassit_jax.config import Config
+    from mpassit_jax.grids.target import build_target_grid
+    from mpassit_jax.weights.restagger import edge1_weights, edge2_weights
 
     rng = np.random.default_rng(seed)
     nx, ny = int(rng.integers(5, 9)), int(rng.integers(4, 8))
@@ -323,8 +323,8 @@ def test_oracle_fuzz_sweep(seed):
     points far outside the mesh interior, which must unmap identically in
     generator and oracle) — every seed pins all three generators to the
     independent oracle."""
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
-    from mpassit_tpu.weights.conservative import conservative_weights
+    from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_jax.weights.conservative import conservative_weights
 
     from test_weights import coarse_lambert_grid
 

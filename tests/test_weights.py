@@ -1,16 +1,16 @@
 import numpy as np
 import pytest
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.grids.target import build_target_grid
-from mpassit_tpu.mesh.mpas import lonlat_to_xyz
-from mpassit_tpu.weights.bilinear import (
+from mpassit_jax.config import Config
+from mpassit_jax.grids.target import build_target_grid
+from mpassit_jax.mesh.mpas import lonlat_to_xyz
+from mpassit_jax.weights.bilinear import (
     bilinear_cell_weights,
     bilinear_vertex_weights,
 )
-from mpassit_tpu.weights.conservative import conservative_weights
-from mpassit_tpu.weights.ell import ELLWeights
-from mpassit_tpu.weights.nearest import nearest_weights
+from mpassit_jax.weights.conservative import conservative_weights
+from mpassit_jax.weights.ell import ELLWeights
+from mpassit_jax.weights.nearest import nearest_weights
 
 
 def coarse_lambert_grid(nx=30, ny=24, dx=150e3):
@@ -137,7 +137,7 @@ def test_ell_save_load(tmp_path, small_mesh, grid):
 
 def test_regional_mesh_unmapped_rows(grid):
     """Targets outside a regional mesh hull are unmapped (quirk Q5)."""
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_jax.mesh.synthetic import synthetic_voronoi_mesh
 
     mesh = synthetic_voronoi_mesh(ncells=500, nz=3, nsoil=1)
     # fake a regional mesh by keeping only cells near the grid center:

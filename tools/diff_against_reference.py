@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Compare an mpassit_tpu output NetCDF against a REAL MPASSIT output file,
+"""Compare an mpassit_jax output NetCDF against a REAL MPASSIT output file,
 var for var — the one-command parity check for when an output of the
 Fortran/ESMF reference becomes available (it cannot be built in this
 environment; see DESIGN.md "Parity-risk register").
@@ -43,7 +43,7 @@ KNOWN_DEVIATIONS = {
 
 def compare(ref_path, ours_path, rtol, atol, skip, mask_unmapped):
     sys.path.insert(0, __file__.rsplit("/tools/", 1)[0])
-    from mpassit_tpu.io.nc4 import open_dataset
+    from mpassit_jax.io.nc4 import open_dataset
 
     report = {"match": [], "deviation": [], "fail": [], "missing": [],
               "extra": [], "unmapped_suspect": {}}
